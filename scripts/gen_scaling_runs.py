@@ -53,7 +53,7 @@ def main():
                     n = int((n + args.block_size - 1) // args.block_size) * args.block_size
                 else:
                     n = base_n
-                print(f"python -m dlaf_tpu.miniapps.{mod} -n {n} "
+                print(f"python -m dlaf_jax.miniapps.{mod} -n {n} "
                       f"-b {args.block_size} --grid-rows {pr} --grid-cols {pc} "
                       f"--nruns {args.nruns} --nwarmups {args.nwarmups} "
                       f"--type {args.type}")

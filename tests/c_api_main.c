@@ -1,9 +1,9 @@
-/* C-caller smoke test for the dlaf_tpu C API (dlaf_tpu_c.h): builds an SPD
+/* C-caller smoke test for the dlaf_jax C API (dlaf_jax_c.h): builds an SPD
  * matrix in ScaLAPACK column-major layout, runs pdpotrf and pdsyevd through
  * the embedded-runtime shim, and checks residuals in plain C — the analog
  * of the reference's C API tests (test/unit/c_api). Compiled and executed
  * by tests/test_c_api.py. */
-#include "dlaf_tpu_c.h"
+#include "dlaf_jax_c.h"
 
 #include <math.h>
 #include <stdio.h>

@@ -18,28 +18,29 @@ Each process:
 
 Usage: python multihost_worker.py <process_id> <num_processes> <port>
 """
+import os
 import sys
 
 proc_id, nprocs, port = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
 
-from dlaf_tpu.cache import cpu_cache_dir
-import jax
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from dlaf_jax.cache import configure_compilation_cache  # noqa: E402
+import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 2)
-jax.config.update("jax_compilation_cache_dir", cpu_cache_dir())
+configure_compilation_cache(cpu=True)
 
 jax.distributed.initialize(coordinator_address=f"localhost:{port}",
                            num_processes=nprocs, process_id=proc_id)
 
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-
-import dlaf_tpu  # noqa: F401
-from dlaf_tpu.algos.cholesky import cholesky
-from dlaf_tpu.comm.mesh import Grid
-from dlaf_tpu.matrix.dist_matrix import DistMatrix
+import dlaf_jax  # noqa: F401
+from dlaf_jax.algos.cholesky import cholesky
+from dlaf_jax.comm.mesh import Grid
+from dlaf_jax.matrix.dist_matrix import DistMatrix
 
 assert len(jax.devices()) == 2 * nprocs, jax.devices()
 assert len(jax.local_devices()) == 2
@@ -69,7 +70,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 rep = jax.jit(lambda x: x, out_shardings=NamedSharding(grid.mesh, P()))(
     out.data)
-from dlaf_tpu.dist import gather_from_shards
+from dlaf_jax.dist import gather_from_shards
 
 full = gather_from_shards(np.asarray(jax.device_get(rep)), out.dist)
 l = np.tril(np.asarray(full)[:n, :n])

@@ -2,10 +2,10 @@
 import numpy as np
 import pytest
 
-import dlaf_tpu as dt
-from dlaf_tpu.api import scalapack as sl
-from dlaf_tpu.matrix import generators as gen
-from dlaf_tpu.matrix.io import MatrixFile
+import dlaf_jax as dt
+from dlaf_jax.api import scalapack as sl
+from dlaf_jax.matrix import generators as gen
+from dlaf_jax.matrix.io import MatrixFile
 
 import jax
 
@@ -61,13 +61,13 @@ def test_pdsyevd():
     a = np.asarray(gen.random_hermitian(jax.random.PRNGKey(1), n, np.float64))
     ctx = sl.dlaf_create_grid(1, 1)
     desc = sl.DLAF_descriptor(m=n, n=n, mb=16, nb=16)
-    import dlaf_tpu
-    dlaf_tpu.set_tune_parameters(eigensolver_min_band=8, default_block_size=16)
+    import dlaf_jax
+    dlaf_jax.set_tune_parameters(eigensolver_min_band=8, default_block_size=16)
     try:
         w, z = sl.dlaf_pdsyevd("L", n, a, 1, 1, desc, ctx)
         np.testing.assert_allclose(a @ z, z * w[None, :], atol=1e-10)
     finally:
-        dlaf_tpu.tune.reset_tune_parameters()
+        dlaf_jax.tune.reset_tune_parameters()
         sl.dlaf_free_grid(ctx)
 
 
@@ -78,15 +78,15 @@ def test_pdsyevd_routes_through_grid():
     n = 48
     a = np.asarray(gen.random_hermitian(jax.random.PRNGKey(2), n, np.float64))
     ctx = sl.dlaf_create_grid(2, 3)
-    import dlaf_tpu
-    dlaf_tpu.set_tune_parameters(eigensolver_min_band=8, default_block_size=16)
+    import dlaf_jax
+    dlaf_jax.set_tune_parameters(eigensolver_min_band=8, default_block_size=16)
     try:
         desc = sl.DLAF_descriptor(m=n, n=n, mb=16, nb=16)
         w, z = sl.dlaf_pdsyevd("L", n, a, 1, 1, desc, ctx)
         np.testing.assert_allclose(a @ z, z * w[None, :], atol=1e-9)
         np.testing.assert_allclose(z.T @ z, np.eye(n), atol=1e-9)
     finally:
-        dlaf_tpu.tune.reset_tune_parameters()
+        dlaf_jax.tune.reset_tune_parameters()
         sl.dlaf_free_grid(ctx)
 
 
@@ -97,14 +97,14 @@ def test_pdsygvd_grid():
     b = np.asarray(gen.random_hermitian_positive_definite(
         jax.random.PRNGKey(4), n, np.float64))
     ctx = sl.dlaf_create_grid(2, 2)
-    import dlaf_tpu
-    dlaf_tpu.set_tune_parameters(eigensolver_min_band=8, default_block_size=16)
+    import dlaf_jax
+    dlaf_jax.set_tune_parameters(eigensolver_min_band=8, default_block_size=16)
     try:
         desc = sl.DLAF_descriptor(m=n, n=n, mb=16, nb=16)
         w, x = sl.dlaf_pdsygvd("L", n, a, b, 1, 1, desc, ctx)
         np.testing.assert_allclose(a @ x, b @ x * w[None, :], atol=1e-8)
     finally:
-        dlaf_tpu.tune.reset_tune_parameters()
+        dlaf_jax.tune.reset_tune_parameters()
         sl.dlaf_free_grid(ctx)
 
 
@@ -146,15 +146,15 @@ def test_pdsygvd_submatrix_offset():
     ib0 = jb0 = 0
     fullb[ib0:ib0 + nsub, jb0:jb0 + nsub] = bsub
     ctx = sl.dlaf_create_grid(2, 2)
-    import dlaf_tpu
-    dlaf_tpu.set_tune_parameters(eigensolver_min_band=8, default_block_size=16)
+    import dlaf_jax
+    dlaf_jax.set_tune_parameters(eigensolver_min_band=8, default_block_size=16)
     try:
         desc = sl.DLAF_descriptor(m=m, n=m, mb=nb, nb=nb)
         w, x = sl.dlaf_pdsygvd("L", nsub, fulla, fullb, i0 + 1, j0 + 1, desc,
                                ctx, ib=ib0 + 1, jb=jb0 + 1)
         np.testing.assert_allclose(asub @ x, bsub @ x * w[None, :], atol=1e-8)
     finally:
-        dlaf_tpu.tune.reset_tune_parameters()
+        dlaf_jax.tune.reset_tune_parameters()
         sl.dlaf_free_grid(ctx)
 
 
@@ -178,8 +178,8 @@ def test_pzheevd_and_pchegvd():
     b = np.asarray(gen.random_hermitian_positive_definite(
         jax.random.PRNGKey(4), n, np.complex128))
     ctx = sl.dlaf_create_grid(2, 2)
-    import dlaf_tpu
-    dlaf_tpu.set_tune_parameters(eigensolver_min_band=8, default_block_size=16)
+    import dlaf_jax
+    dlaf_jax.set_tune_parameters(eigensolver_min_band=8, default_block_size=16)
     try:
         desc = sl.DLAF_descriptor(m=n, n=n, mb=16, nb=16)
         w, z = sl.dlaf_pzheevd("L", n, a, 1, 1, desc, ctx)
@@ -190,5 +190,5 @@ def test_pzheevd_and_pchegvd():
         np.testing.assert_allclose(a @ x, b @ x * wg[None, :], atol=1e-8)
         np.testing.assert_allclose(x.conj().T @ b @ x, np.eye(n), atol=1e-8)
     finally:
-        dlaf_tpu.tune.reset_tune_parameters()
+        dlaf_jax.tune.reset_tune_parameters()
         sl.dlaf_free_grid(ctx)

@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import dlaf_tpu as dt
-from dlaf_tpu.algos import gen_to_std, norm, permutations
-from dlaf_tpu.comm.mesh import Grid
-from dlaf_tpu.matrix import generators as gen
-from dlaf_tpu.matrix.dist_matrix import DistMatrix
+import dlaf_jax as dt
+from dlaf_jax.algos import gen_to_std, norm, permutations
+from dlaf_jax.comm.mesh import Grid
+from dlaf_jax.matrix import generators as gen
+from dlaf_jax.matrix.dist_matrix import DistMatrix
 
 from conftest import tol
 
@@ -66,7 +66,7 @@ def test_dist_gen_to_std():
     a = gen.random_hermitian(jax.random.PRNGKey(5), n, dtype)
     b = gen.random_hermitian_positive_definite(jax.random.PRNGKey(6), n, dtype)
     l = dt.potrf(b, nb=16)
-    from dlaf_tpu.ops.core import symmetrize_tri
+    from dlaf_jax.ops.core import symmetrize_tri
     grid = Grid((2, 2))
     da = DistMatrix.from_global(symmetrize_tri(a, True), 16, grid)
     dl = DistMatrix.from_global(l, 16, grid, pad_identity=True)
@@ -78,10 +78,10 @@ def test_dist_gen_to_std():
 
 def test_dist_gen_to_std_upper():
     """uplo='U' distributed gen-to-std (one device-resident transpose)."""
-    import dlaf_tpu as dt
-    from dlaf_tpu.algos.gen_to_std import generalized_to_standard_dist
-    from dlaf_tpu.comm.mesh import Grid
-    from dlaf_tpu.matrix.dist_matrix import DistMatrix
+    import dlaf_jax as dt
+    from dlaf_jax.algos.gen_to_std import generalized_to_standard_dist
+    from dlaf_jax.comm.mesh import Grid
+    from dlaf_jax.matrix.dist_matrix import DistMatrix
 
     n, nb = 96, 16
     a = gen.random_hermitian(jax.random.PRNGKey(0), n, np.dtype("float64"))

@@ -1,13 +1,13 @@
-"""Strip-storage stage 2: JAX kernel and Pallas kernel (interpret mode)
-against the dense reference kernel (reference parity:
+"""Strip-storage stage 2: the strip kernel against the dense reference
+kernel (reference parity:
 ``eigensolver/band_to_tridiag/mc.h``)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dlaf_tpu.algos.eigensolver import band_strips as bs
-from dlaf_tpu.algos.eigensolver.band2tridiag import band_to_tridiag as dense_ref
+from dlaf_jax.algos.eigensolver import band_strips as bs
+from dlaf_jax.algos.eigensolver.band2tridiag import band_to_tridiag as dense_ref
 
 from conftest import tol
 
@@ -48,224 +48,8 @@ def test_strips_kernel_matches_dense(dtype, n, b):
     assert float(jnp.max(jnp.abs(t0 - t1))) <= bound
 
 
-@pytest.mark.parametrize("n,b,dtype", [
-    (50, 8, np.dtype("float32")),
-    # complex + bigger shapes in the slow lane: interpret-mode replays cost
-    # 9-15s each; one f32 config is the fast-gate representative
-    pytest.param(50, 8, np.dtype("complex64"), marks=pytest.mark.slow),
-    pytest.param(64, 8, np.dtype("float32"), marks=pytest.mark.slow),
-    pytest.param(70, 16, np.dtype("complex64"), marks=pytest.mark.slow),
-    # b > 128 -> bpt = 2: the multi-row reflector record drain (the
-    # single-sublane-DMA-per-row path that unlocks band=256 on Mosaic)
-    pytest.param(200, 160, np.dtype("float32"), marks=pytest.mark.slow),
-])
-def test_pallas_kernel_matches_dense_interpret(n, b, dtype):
-    from jax.experimental.pallas import tpu as pltpu
-    from dlaf_tpu.ops.pallas.band2tridiag import band_to_tridiag_strips_pallas
-    band = _band(n, b, dtype)
-    d0, e0, vs0, t0 = dense_ref(band, b)
-    strips = bs.band_to_strips(band, b)
-    with pltpu.force_tpu_interpret_mode():
-        d1, e1, vs1, t1 = band_to_tridiag_strips_pallas(strips, n, b)
-    bound = tol(dtype, n, 2000)
-    assert float(jnp.max(jnp.abs(d0 - d1))) <= bound
-    assert float(jnp.max(jnp.abs(e0 - e1))) <= bound
-    assert float(jnp.max(jnp.abs(t0 - t1))) <= bound
-    # vs heads differ in convention for tau == 0 reflectors (no-ops); compare
-    # where tau != 0
-    act = np.asarray(t0) != 0
-    assert float(np.max(np.abs(np.asarray(vs0 - vs1)) * act[:, :, None])) <= bound
-
-
-@pytest.mark.slow
-def test_bt_raw_record_matches_cooked_interpret():
-    """raw_record (the n=32768 single-chunk HBM plan: no cooked O(n^2)
-    record copy) applied through bt_band_to_tridiag(raw_bp=...) must match
-    the cooked-record application exactly."""
-    from jax.experimental.pallas import tpu as pltpu
-    from dlaf_tpu.algos.eigensolver.bt import bt_band_to_tridiag
-    from dlaf_tpu.ops.pallas.band2tridiag import band_to_tridiag_strips_pallas
-    n, b, g = 66, 8, 16
-    nev = 24
-    band = _band(n, b, np.float32)
-    strips = bs.band_to_strips(band, b)
-    with pltpu.force_tpu_interpret_mode():
-        d0, e0, vs, taus = band_to_tridiag_strips_pallas(strips, n, b)
-        d1, e1, raw, traw = band_to_tridiag_strips_pallas(
-            strips, n, b, raw_record=True)
-    assert np.allclose(np.asarray(d0), np.asarray(d1))
-    assert np.allclose(np.asarray(taus), np.asarray(traw))
-    e_mat = jax.random.normal(jax.random.PRNGKey(3), (n, nev), jnp.float32)
-    out_cooked = bt_band_to_tridiag(e_mat, vs, taus, b, group_size=g)
-    win = b + g - 1
-    ep = jnp.concatenate([e_mat, jnp.zeros((win, nev), jnp.float32)])
-    out_raw = bt_band_to_tridiag(ep, raw, traw, b, group_size=g,
-                                 prepadded=True, raw_bp=128)[:n]
-    assert np.allclose(np.asarray(out_cooked), np.asarray(out_raw),
-                       atol=1e-6)
-
-
-@pytest.mark.parametrize("nev", [
-    256,
-    pytest.param(640, marks=pytest.mark.slow),  # njt > 1: multi-pass seams
-])
-def test_bt_shifted_streaming_apply_matches_cooked_interpret(nev):
-    """The streaming Pallas stage-4 apply (shifted two-block windows, VMEM
-    overlap carry — the n=32768 contract path) must match the cooked-record
-    XLA apply."""
-    from jax.experimental.pallas import tpu as pltpu
-    from dlaf_tpu.algos.eigensolver.bt import bt_band_to_tridiag
-    from dlaf_tpu.ops.pallas.band2tridiag import band_to_tridiag_strips_pallas
-    n, b = 256, 128
-    chunk = 256                       # nsweeps (254) rounded up to g = b
-    band = _band(n, b, np.float32)
-    strips = bs.band_to_strips(band, b)
-    with pltpu.force_tpu_interpret_mode():
-        _, _, vs, taus = band_to_tridiag_strips_pallas(
-            strips, n, b, sweep_lo=0, sweep_chunk=chunk)
-        _, _, raw, traw = band_to_tridiag_strips_pallas(
-            strips, n, b, sweep_lo=0, sweep_chunk=chunk, raw_record=True)
-        e_mat = jax.random.normal(jax.random.PRNGKey(3), (n, nev),
-                                  jnp.float32)
-        out_cooked = bt_band_to_tridiag(e_mat, vs, taus, b, group_size=b)
-        ep2 = jnp.concatenate(
-            [e_mat[1:], jnp.zeros((2 * b + 1, nev), jnp.float32)], axis=0)
-        out2 = bt_band_to_tridiag(ep2, raw, traw, b, group_size=b,
-                                  sweep_lo=0, raw_bp=128, shifted=True)
-    out_shifted = jnp.concatenate([e_mat[:1], out2[:n - 1]], axis=0)
-    err = float(jnp.max(jnp.abs(out_cooked - out_shifted)))
-    assert err <= 1e-5, err
-
-
-@pytest.mark.parametrize("kf,n", [
-    # 145s interpret replay — slow lane (the shifted-apply test is the
-    # fast-gate Pallas stage-4 representative; the fused path is also
-    # validated ON CHIP by scripts/microbench_fused.py kf=4/8 bit-equality)
-    pytest.param(2, 512, marks=pytest.mark.slow),
-    pytest.param(4, 768, marks=pytest.mark.slow),  # rpeel=2 singles + 1 fused
-    pytest.param(2, 640, marks=pytest.mark.slow),  # rpeel=1 odd split
-])
-def test_bt_fused_streaming_apply_matches_cooked_interpret(kf, n):
-    """The k-fused wavefront apply (k staggered groups per E pass) must
-    match the cooked-record XLA apply; covers rpeel singles + fused steps."""
-    from jax.experimental.pallas import tpu as pltpu
-    import dlaf_tpu
-    from dlaf_tpu.algos.eigensolver.bt import bt_band_to_tridiag
-    from dlaf_tpu.ops.pallas.band2tridiag import band_to_tridiag_strips_pallas
-    b, nev = 128, 256
-    nsweeps = n - 2
-    chunk = -(-nsweeps // b) * b
-    band = _band(n, b, np.float32)
-    strips = bs.band_to_strips(band, b)
-    dlaf_tpu.set_tune_parameters(bt_apply_fuse_groups=kf)
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            _, _, vs, taus = band_to_tridiag_strips_pallas(
-                strips, n, b, sweep_lo=0, sweep_chunk=chunk)
-            _, _, raw, traw = band_to_tridiag_strips_pallas(
-                strips, n, b, sweep_lo=0, sweep_chunk=chunk, raw_record=True)
-            e_mat = jax.random.normal(jax.random.PRNGKey(3), (n, nev),
-                                      jnp.float32)
-            out_cooked = bt_band_to_tridiag(e_mat, vs, taus, b, group_size=b)
-            ep2 = jnp.concatenate(
-                [e_mat[1:], jnp.zeros((2 * b + 1, nev), jnp.float32)], axis=0)
-            out2 = bt_band_to_tridiag(ep2, raw, traw, b, group_size=b,
-                                      sweep_lo=0, raw_bp=128, shifted=True)
-    finally:
-        dlaf_tpu.set_tune_parameters(bt_apply_fuse_groups=8)
-        jax.clear_caches()   # the knob is captured at trace time
-    out_shifted = jnp.concatenate([e_mat[:1], out2[:n - 1]], axis=0)
-    err = float(jnp.max(jnp.abs(out_cooked - out_shifted)))
-    assert err <= 1e-5, err
-
-
-@pytest.mark.slow
-def test_bt_fused_overshooting_chunk_plan_interpret():
-    """Fused steps containing geometric phantom groups (chunked records
-    whose rounded sweep range overshoots the band end) must skip exactly
-    the phantom prefix via the nact gate: n=896, b=128, rec_chunks=3 puts
-    2 overshoot groups in the first chunk's first fused step."""
-    from jax.experimental.pallas import tpu as pltpu
-    import dlaf_tpu
-    from dlaf_tpu.algos.eigensolver.bt import bt_band_to_tridiag
-    n, b, nev = 896, 128, 256
-    chunk, nchunks = 384, 3
-    nsweeps = n - 2
-    band = _band(n, b, np.float32)
-    d0, e0, vs, taus = dense_ref(band, b)
-    ncmax = vs.shape[1]
-    e_mat = jax.random.normal(jax.random.PRNGKey(3), (n, nev), jnp.float32)
-    out_cooked = bt_band_to_tridiag(e_mat, vs, taus, b, group_size=b)
-    vs_np = np.asarray(vs)
-    taus_np = np.asarray(taus)
-    ep2 = jnp.concatenate(
-        [e_mat[1:], jnp.zeros((2 * b + 1, nev), jnp.float32)], axis=0)
-    dlaf_tpu.set_tune_parameters(bt_apply_fuse_groups=2)
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            for ci in range(nchunks - 1, -1, -1):
-                lo = ci * chunk
-                raw = np.zeros((chunk + 1, ncmax, 128), np.float32)
-                tch = np.zeros((chunk, ncmax), np.float32)
-                nvalid = max(0, min(chunk, nsweeps - lo))
-                raw[:nvalid, :, :b] = vs_np[lo:lo + nvalid]
-                tch[:nvalid] = taus_np[lo:lo + nvalid]
-                ep2 = bt_band_to_tridiag(ep2, jnp.asarray(raw),
-                                         jnp.asarray(tch),
-                                         b, group_size=b, sweep_lo=lo,
-                                         raw_bp=128, shifted=True)
-    finally:
-        dlaf_tpu.set_tune_parameters(bt_apply_fuse_groups=8)
-        jax.clear_caches()
-    out_shifted = jnp.concatenate([e_mat[:1], ep2[:n - 1]], axis=0)
-    err = float(jnp.max(jnp.abs(out_cooked - out_shifted)))
-    assert err <= 1e-5, err
-
-
-@pytest.mark.slow
-def test_bt_shifted_overshooting_chunk_plan_interpret():
-    """Chunked records whose rounded sweep range overshoots nsweeps by
-    >= 2b+2 put trailing groups at abs0 >= nmat + b; unclamped, the
-    streaming kernel DMAs one block past the (n+2b, nev) buffer (silent
-    OOB HBM R/W in production; advisor round-4 high finding). The clamp in
-    bt.py group_step must make those groups exact no-ops: n=896, b=128,
-    rec_chunks=3 gives chunk=384, covered=1152, overshoot=258 = 2b+2."""
-    from jax.experimental.pallas import tpu as pltpu
-    from dlaf_tpu.algos.eigensolver.bt import bt_band_to_tridiag
-    n, b, nev = 896, 128, 256
-    chunk, nchunks = 384, 3                     # eigh_large plan, rc=3
-    nsweeps = n - 2
-    band = _band(n, b, np.float32)
-    d0, e0, vs, taus = dense_ref(band, b)       # cooked oracle record
-    ncmax = vs.shape[1]
-    e_mat = jax.random.normal(jax.random.PRNGKey(3), (n, nev), jnp.float32)
-    out_cooked = bt_band_to_tridiag(e_mat, vs, taus, b, group_size=b)
-
-    # synthesize each chunk's RAW record (layout of band2tridiag
-    # raw_record: (chunk+1, ncmax*bpt, 128) with slot 0 junk) from the
-    # cooked record -- no chaser run needed
-    vs_np = np.asarray(vs)
-    taus_np = np.asarray(taus)
-    ep2 = jnp.concatenate(
-        [e_mat[1:], jnp.zeros((2 * b + 1, nev), jnp.float32)], axis=0)
-    with pltpu.force_tpu_interpret_mode():
-        for ci in range(nchunks - 1, -1, -1):   # descending sweep order
-            lo = ci * chunk
-            raw = np.zeros((chunk + 1, ncmax, 128), np.float32)
-            tch = np.zeros((chunk, ncmax), np.float32)
-            nvalid = max(0, min(chunk, nsweeps - lo))
-            raw[:nvalid, :, :b] = vs_np[lo:lo + nvalid]
-            tch[:nvalid] = taus_np[lo:lo + nvalid]
-            ep2 = bt_band_to_tridiag(ep2, jnp.asarray(raw), jnp.asarray(tch),
-                                     b, group_size=b, sweep_lo=lo,
-                                     raw_bp=128, shifted=True)
-    out_shifted = jnp.concatenate([e_mat[:1], ep2[:n - 1]], axis=0)
-    err = float(jnp.max(jnp.abs(out_cooked - out_shifted)))
-    assert err <= 1e-5, err
-
-
 def test_packed_to_strips_matches_extract_band():
-    from dlaf_tpu.algos.eigensolver.red2band import extract_band, reduction_to_band
+    from dlaf_jax.algos.eigensolver.red2band import extract_band, reduction_to_band
     n, b = 64, 8
     a = jax.random.normal(jax.random.PRNGKey(1), (n, n), jnp.float64)
     a = a + a.T
@@ -274,20 +58,3 @@ def test_packed_to_strips_matches_extract_band():
     s_ref = bs.band_to_strips(band, b)
     s_new = bs.packed_to_strips(packed, b)
     assert np.allclose(np.asarray(s_ref), np.asarray(s_new))
-
-
-def test_chaser_feasible_table():
-    """VMEM feasibility gate for the Pallas chaser (selection must route
-    infeasible bands to the JAX strips kernel instead of failing Mosaic
-    scoped-memory allocation): 3+ read slots of P*3*b*win_lanes(b) f32."""
-    import jax.numpy as jnp
-
-    from dlaf_tpu.ops.pallas.band2tridiag import chaser_feasible
-
-    assert chaser_feasible(128, jnp.float32)
-    assert chaser_feasible(256, jnp.float32)
-    assert chaser_feasible(384, jnp.float32)
-    assert not chaser_feasible(512, jnp.float32)
-    assert chaser_feasible(128, jnp.complex64)
-    assert chaser_feasible(256, jnp.complex64)
-    assert not chaser_feasible(384, jnp.complex64)

@@ -17,11 +17,11 @@ import jax
 import numpy as np
 import pytest
 
-from dlaf_tpu.algos.cholesky import cholesky
-from dlaf_tpu.algos.eigensolver.dist_driver import eigh_dist
-from dlaf_tpu.comm.mesh import Grid
-from dlaf_tpu.matrix import generators as gen
-from dlaf_tpu.matrix.dist_matrix import DistMatrix
+from dlaf_jax.algos.cholesky import cholesky
+from dlaf_jax.algos.eigensolver.dist_driver import eigh_dist
+from dlaf_jax.comm.mesh import Grid
+from dlaf_jax.matrix import generators as gen
+from dlaf_jax.matrix.dist_matrix import DistMatrix
 
 pytestmark = pytest.mark.slow
 

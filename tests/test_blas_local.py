@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import dlaf_tpu as dt
-from dlaf_tpu.matrix import generators as gen
-from dlaf_tpu.types import eps
+import dlaf_jax as dt
+from dlaf_jax.matrix import generators as gen
+from dlaf_jax.types import eps
 
 from conftest import tol
 

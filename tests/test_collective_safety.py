@@ -1,8 +1,8 @@
 """Static collective-schedule safety across distributed entry points.
 
 The reference runs sanitizer lanes in CI for its mutable-tile task graph
-(SURVEY.md §5 race detection). dlaf_tpu's SPMD programs cannot data-race,
-but a collective under rank-divergent control flow deadlocks; dlaf_tpu.debug
+(SURVEY.md §5 race detection). dlaf_jax's SPMD programs cannot data-race,
+but a collective under rank-divergent control flow deadlocks; dlaf_jax.debug
 statically extracts each program's collective schedule and flags the two
 divergence patterns (collective in a lax.cond branch / lax.while body).
 These tests (a) prove the detector catches seeded divergences and (b) sweep
@@ -13,11 +13,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dlaf_tpu.debug import (assert_same_schedule, check_collective_safety,
+from dlaf_jax.debug import (assert_same_schedule, check_collective_safety,
                             collective_schedule)
-from dlaf_tpu.comm.mesh import Grid
-from dlaf_tpu.matrix import generators as gen
-from dlaf_tpu.matrix.dist_matrix import DistMatrix
+from dlaf_jax.comm.mesh import Grid
+from dlaf_jax.matrix import generators as gen
+from dlaf_jax.matrix.dist_matrix import DistMatrix
 
 
 def _mesh22():
@@ -109,7 +109,7 @@ def _fixtures(grid_size=(2, 2), n=64, nb=16):
 
 @pytest.mark.parametrize("grid_size", [(2, 2), (2, 3)])
 def test_dist_cholesky_statically_safe(grid_size):
-    from dlaf_tpu.algos.cholesky import cholesky
+    from dlaf_jax.algos.cholesky import cholesky
     g, da, _ = _fixtures(grid_size)
     for uplo in ("L", "U"):
         fn = (lambda u: lambda x:
@@ -119,8 +119,8 @@ def test_dist_cholesky_statically_safe(grid_size):
 
 
 def test_dist_trsm_gemm_statically_safe():
-    from dlaf_tpu.algos.triangular import triangular_solver
-    from dlaf_tpu.algos.general import general_multiplication
+    from dlaf_jax.algos.triangular import triangular_solver
+    from dlaf_jax.algos.general import general_multiplication
     g, da, db = _fixtures()
 
     def trsm(x, y):
@@ -136,7 +136,7 @@ def test_dist_trsm_gemm_statically_safe():
 
 
 def test_dist_eigh_statically_safe():
-    from dlaf_tpu.algos.eigensolver.dist_driver import eigh_dist
+    from dlaf_jax.algos.eigensolver.dist_driver import eigh_dist
     g, da, _ = _fixtures()
 
     def fe(x):
@@ -146,8 +146,8 @@ def test_dist_eigh_statically_safe():
 
 
 def test_dist_gen_to_std_statically_safe():
-    from dlaf_tpu.algos.cholesky import cholesky
-    from dlaf_tpu.algos.gen_to_std import generalized_to_standard_dist
+    from dlaf_jax.algos.cholesky import cholesky
+    from dlaf_jax.algos.gen_to_std import generalized_to_standard_dist
     g, da, db = _fixtures()
     l = cholesky(da)
 
@@ -162,7 +162,7 @@ def test_schedule_stable_across_grids():
     """The same algorithm lowers to the same collective schedule shape on
     different grids of the same topology rank — a rank-count change cannot
     introduce a divergent schedule (assert_same_schedule smoke)."""
-    from dlaf_tpu.algos.cholesky import cholesky
+    from dlaf_jax.algos.cholesky import cholesky
 
     def run(grid_size):
         g, da, _ = _fixtures(grid_size)

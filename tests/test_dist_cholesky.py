@@ -9,10 +9,10 @@ import jax
 import numpy as np
 import pytest
 
-from dlaf_tpu.algos.cholesky import cholesky
-from dlaf_tpu.comm.mesh import Grid
-from dlaf_tpu.matrix import generators as gen
-from dlaf_tpu.matrix.dist_matrix import DistMatrix
+from dlaf_jax.algos.cholesky import cholesky
+from dlaf_jax.comm.mesh import Grid
+from dlaf_jax.matrix import generators as gen
+from dlaf_jax.matrix.dist_matrix import DistMatrix
 
 from conftest import tol
 
@@ -45,7 +45,7 @@ def test_dist_cholesky(grid_size, n, nb, real_dtype_p):
 
 @pytest.mark.parametrize("grid_size", [(2, 2), (2, 3)])
 def test_dist_matches_local(grid_size):
-    import dlaf_tpu as dt
+    import dlaf_jax as dt
     n, nb = 96, 16
     a = gen.random_hermitian_positive_definite(jax.random.PRNGKey(0), n, np.dtype("float64"))
     grid = Grid(grid_size)
@@ -102,9 +102,9 @@ def test_dist_cholesky_upper_many_panels():
     n, nb = 256, 16
     a = gen.random_hermitian_positive_definite(
         jax.random.PRNGKey(11), n, np.dtype("float64"))
-    import dlaf_tpu
-    old = dlaf_tpu.get_tune_parameters().potrf_dist_panel_width
-    dlaf_tpu.set_tune_parameters(potrf_dist_panel_width=16)
+    import dlaf_jax
+    old = dlaf_jax.get_tune_parameters().potrf_dist_panel_width
+    dlaf_jax.set_tune_parameters(potrf_dist_panel_width=16)
     try:
         dm = DistMatrix.from_global(a, nb, Grid((2, 2)), pad_identity=True)
         u = np.triu(np.asarray(cholesky(dm, uplo="U").to_global()))
@@ -112,4 +112,4 @@ def test_dist_cholesky_upper_many_panels():
         assert res <= 100 * n * np.finfo(np.float64).eps * \
             np.max(np.abs(np.asarray(a)))
     finally:
-        dlaf_tpu.set_tune_parameters(potrf_dist_panel_width=old)
+        dlaf_jax.set_tune_parameters(potrf_dist_panel_width=old)

@@ -5,14 +5,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import dlaf_tpu
-from dlaf_tpu.algos.eigensolver.dist_driver import eigh_dist, eigh_gen_dist
-from dlaf_tpu.algos.eigensolver.dist_red2band import reduction_to_band_dist
-from dlaf_tpu.algos.eigensolver.red2band import reduction_to_band
-from dlaf_tpu.comm.mesh import Grid
-from dlaf_tpu.matrix import generators as gen
-from dlaf_tpu.matrix.dist_matrix import DistMatrix
-from dlaf_tpu.types import eps
+import dlaf_jax
+from dlaf_jax.algos.eigensolver.dist_driver import eigh_dist, eigh_gen_dist
+from dlaf_jax.algos.eigensolver.dist_red2band import reduction_to_band_dist
+from dlaf_jax.algos.eigensolver.red2band import reduction_to_band
+from dlaf_jax.comm.mesh import Grid
+from dlaf_jax.matrix import generators as gen
+from dlaf_jax.matrix.dist_matrix import DistMatrix
+from dlaf_jax.types import eps
 
 
 @pytest.mark.parametrize("grid_size", [(2, 2), (2, 3), (1, 4)])
@@ -37,7 +37,7 @@ def test_merge_tree_idle_fraction():
     """Idle cap on non-power-of-2 grids (reference supports ragged grids in
     mergeDistSubproblems, merge.h:1810-1941; here the stage-3 tree runs on
     the pow2 subset and the idle share is quantified + surfaced)."""
-    from dlaf_tpu.algos.eigensolver.tridiag_dc_dist import (
+    from dlaf_jax.algos.eigensolver.tridiag_dc_dist import (
         merge_tree_idle_fraction)
     assert merge_tree_idle_fraction(1) == 0.0
     assert merge_tree_idle_fraction(4) == 0.0
@@ -88,8 +88,8 @@ def test_dist_eigh_gen():
 def test_dist_red2band_band_lt_nb():
     """band < nb (reference getBandSize + retiling): the distributed
     reduction with band-wide panels inside nb-tiles matches the spectrum."""
-    from dlaf_tpu.algos.eigensolver.dist_red2band import reduction_to_band_dist
-    from dlaf_tpu.algos.eigensolver.red2band import extract_band
+    from dlaf_jax.algos.eigensolver.dist_red2band import reduction_to_band_dist
+    from dlaf_jax.algos.eigensolver.red2band import extract_band
 
     n, nb, band = 128, 32, 8
     a = gen.random_hermitian(jax.random.PRNGKey(5), n, np.dtype("float64"))
@@ -104,7 +104,7 @@ def test_dist_red2band_band_lt_nb():
 
 def test_dist_eigh_band_lt_nb():
     """Full eigh_dist with the tuned band < nb path."""
-    import dlaf_tpu as dt
+    import dlaf_jax as dt
 
     old = dt.get_tune_parameters().eigensolver_min_band
     dt.set_tune_parameters(eigensolver_min_band=8)
@@ -125,7 +125,7 @@ def test_dist_eigh_band_lt_nb():
 
 def test_eigvalsh_dist():
     """Distributed eigenvalues-only driver (device-resident + fallback)."""
-    from dlaf_tpu.algos.eigensolver.dist_driver import eigvalsh_dist
+    from dlaf_jax.algos.eigensolver.dist_driver import eigvalsh_dist
 
     for gs, n, nb in (((2, 4), 128, 16), ((2, 3), 96, 16)):
         a = gen.random_hermitian(jax.random.PRNGKey(7), n, np.dtype("float64"))
@@ -160,8 +160,8 @@ def test_dist_eigh_complex(dtype):
 
 def test_dist_eigh_complex_pipelined():
     """Complex + compute-distributed stage 2 (the pipelined chase supports
-    all dtypes, unlike the f32/c64-only Pallas kernel)."""
-    from dlaf_tpu.tune import get_tune_parameters, set_tune_parameters
+    all dtypes)."""
+    from dlaf_jax.tune import get_tune_parameters, set_tune_parameters
 
     dtype = np.dtype("complex128")
     n, nb = 64, 16

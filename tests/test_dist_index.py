@@ -7,7 +7,7 @@ conversion surface against a brute-force model.
 import numpy as np
 import pytest
 
-from dlaf_tpu.dist import Distribution, index as ix
+from dlaf_jax.dist import Distribution, index as ix
 
 
 def brute_force_owner(num_tiles, grid, src):
@@ -80,7 +80,7 @@ def test_distribution_2d():
 
 def test_padded_layout_roundtrip():
     d = Distribution(size=(64, 48), block_size=(8, 8), grid_size=(2, 3))
-    from dlaf_tpu.dist import gather_from_shards, scatter_to_shards
+    from dlaf_jax.dist import gather_from_shards, scatter_to_shards
     pm, pn = d.padded_size
     a = np.arange(pm * pn, dtype=np.float64).reshape(pm, pn)
     shards = scatter_to_shards(a, d)

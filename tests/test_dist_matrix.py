@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dlaf_tpu.comm.mesh import Grid
-from dlaf_tpu.matrix import generators as gen
-from dlaf_tpu.matrix.dist_matrix import DistMatrix
+from dlaf_jax.comm.mesh import Grid
+from dlaf_jax.matrix import generators as gen
+from dlaf_jax.matrix.dist_matrix import DistMatrix
 
 
 @pytest.mark.parametrize("grid_size", [(2, 4), (1, 8), (2, 2)])
@@ -55,7 +55,7 @@ def test_symmetrize(lower, dtype):
 
 
 def test_cholesky_info(real_dtype_p):
-    from dlaf_tpu.algos.cholesky import cholesky_info
+    from dlaf_jax.algos.cholesky import cholesky_info
     n, nb = 64, 16
     g = Grid((2, 4))
     a = gen.random_hermitian_positive_definite(jax.random.PRNGKey(3), n,
@@ -75,7 +75,7 @@ def test_cholesky_info(real_dtype_p):
 
 
 def test_potrf_info_local(real_dtype_p):
-    import dlaf_tpu as dt
+    import dlaf_jax as dt
     n = 96
     a = gen.random_hermitian_positive_definite(jax.random.PRNGKey(4), n,
                                                real_dtype_p)
@@ -118,7 +118,7 @@ def test_from_callback_pad_identity_matches_from_global():
 
 def test_dist_permute_device_resident():
     """Distributed permutation via all_gather + local gather (no host)."""
-    from dlaf_tpu.algos.permutations import permute
+    from dlaf_jax.algos.permutations import permute
     rng = np.random.default_rng(8)
     for gs in ((2, 4), (1, 4)):
         n, nb = 96, 16
@@ -134,10 +134,10 @@ def test_dist_permute_device_resident():
 def test_cols_to_canonical_all_to_all():
     """Explicit uniform all-to-all reshard (tile-aligned fast path)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from dlaf_tpu.algos.eigensolver.dist_stage23 import cols_to_canonical
-    from dlaf_tpu.comm.mesh import COL_AXIS, ROW_AXIS
-    from dlaf_tpu.dist import gather_from_shards
-    from dlaf_tpu.dist.distribution import Distribution
+    from dlaf_jax.algos.eigensolver.dist_stage23 import cols_to_canonical
+    from dlaf_jax.comm.mesh import COL_AXIS, ROW_AXIS
+    from dlaf_jax.dist import gather_from_shards
+    from dlaf_jax.dist.distribution import Distribution
     rng = np.random.default_rng(9)
     for gs, n, nb, m in (((2, 4), 96, 16, 256), ((2, 2), 200, 16, 256),
                          ((2, 2), 128, 16, 128)):
@@ -180,7 +180,7 @@ def test_algorithm_on_sub_matrix_view():
     """An algorithm runs on a device-side sub-matrix view: Cholesky of the
     trailing block of a larger matrix, without host gathers (the reference
     runs algorithms on MatrixRef sub-matrices the same way)."""
-    from dlaf_tpu.algos.cholesky import cholesky
+    from dlaf_jax.algos.cholesky import cholesky
 
     n, nb, off = 96, 8, 4
     rng = np.random.default_rng(8)

@@ -3,10 +3,10 @@ import jax
 import numpy as np
 import pytest
 
-from dlaf_tpu.algos import general as g
-from dlaf_tpu.comm.mesh import Grid
-from dlaf_tpu.matrix import generators as gen
-from dlaf_tpu.matrix.dist_matrix import DistMatrix
+from dlaf_jax.algos import general as g
+from dlaf_jax.comm.mesh import Grid
+from dlaf_jax.matrix import generators as gen
+from dlaf_jax.matrix.dist_matrix import DistMatrix
 
 from conftest import tol
 

@@ -10,18 +10,18 @@ import jax
 import numpy as np
 import pytest
 
-import dlaf_tpu
-from dlaf_tpu.algos.eigensolver.driver import eigh, eigh_gen, get_band_size
-from dlaf_tpu.algos.eigensolver.tridiag_dc import tridiag_eigh
-from dlaf_tpu.matrix import generators as gen
-from dlaf_tpu.types import eps
+import dlaf_jax
+from dlaf_jax.algos.eigensolver.driver import eigh, eigh_gen, get_band_size
+from dlaf_jax.algos.eigensolver.tridiag_dc import tridiag_eigh
+from dlaf_jax.matrix import generators as gen
+from dlaf_jax.types import eps
 
 
 @pytest.fixture(autouse=True)
 def small_bands():
-    dlaf_tpu.set_tune_parameters(eigensolver_min_band=8, default_block_size=16)
+    dlaf_jax.set_tune_parameters(eigensolver_min_band=8, default_block_size=16)
     yield
-    dlaf_tpu.tune.reset_tune_parameters()
+    dlaf_jax.tune.reset_tune_parameters()
 
 
 def _check_eigh(a, w, v, factor=200):
@@ -108,7 +108,7 @@ def test_eigh_gen(factorized):
     a = gen.random_hermitian(jax.random.PRNGKey(1), n, dtype)
     b = gen.random_hermitian_positive_definite(jax.random.PRNGKey(2), n, dtype)
     if factorized:
-        import dlaf_tpu as dt
+        import dlaf_jax as dt
         l = dt.potrf(b, nb=16)
         w, x = eigh_gen(a, l, factorized=True)
     else:
@@ -121,8 +121,8 @@ def test_eigh_gen(factorized):
 
 
 def test_get_band_size():
-    dlaf_tpu.set_tune_parameters(eigensolver_min_band=64)
+    dlaf_jax.set_tune_parameters(eigensolver_min_band=64)
     assert get_band_size(256) == 64
     assert get_band_size(96) == 96
-    dlaf_tpu.set_tune_parameters(eigensolver_min_band=8)
+    dlaf_jax.set_tune_parameters(eigensolver_min_band=8)
     assert get_band_size(96) == 8

@@ -12,9 +12,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import dlaf_tpu as dt
-from dlaf_tpu.algos.eigensolver.large import eigh_large
-from dlaf_tpu.matrix import generators as gen
+import dlaf_jax as dt
+from dlaf_jax.algos.eigensolver.large import eigh_large
+from dlaf_jax.matrix import generators as gen
 
 from conftest import tol
 
@@ -62,7 +62,7 @@ def test_eigh_large_complex(dtype, n, b, chunks):
     """Complex path: phase-normalized real tridiagonal (stage 3), phases
     folded into the stage-4 workspace pad, complex back-transforms
     (reference z-dispatch: miniapp/include/dlaf/miniapp/dispatch.h:17-60)."""
-    from dlaf_tpu.algos.eigensolver.large import eigvalsh_large
+    from dlaf_jax.algos.eigensolver.large import eigvalsh_large
     a = gen.random_hermitian(jax.random.PRNGKey(n + chunks), n,
                              jnp.dtype(dtype))
     an = np.asarray(a)
@@ -107,9 +107,9 @@ def test_eigh_large_timers_and_guards():
 
 
 def test_merge_vectors_j_chunked_matches():
-    """The fused j-chunked rank-one contraction (the n=32768 memory plan)
-    must reproduce the one-shot path."""
-    from dlaf_tpu.algos.eigensolver.tridiag_dc import (_jacobi_eigh, _merge,
+    """The fused j-chunked rank-one contraction (the huge-merge memory
+    plan) must reproduce the one-shot path."""
+    from dlaf_jax.algos.eigensolver.tridiag_dc import (_jacobi_eigh, _merge,
                                                        _merge_vectors)
     rng = np.random.default_rng(0)
     n = 64
@@ -129,3 +129,32 @@ def test_merge_vectors_j_chunked_matches():
                                rtol=0, atol=1e-13)
     np.testing.assert_allclose(np.asarray(q_a), np.asarray(q_b),
                                rtol=0, atol=1e-12)
+
+
+def test_tridiag_top_merge_j_chunked_matches(monkeypatch):
+    """The driver's vmapped top merge with the j-chunk plan switched on (at
+    a tiny threshold) reproduces the unchunked solve."""
+    from dlaf_jax.algos.eigensolver import tridiag_dc as tdc
+    rng = np.random.default_rng(1)
+    n = 256
+    d = jnp.asarray(rng.standard_normal(n))
+    e = jnp.asarray(rng.standard_normal(n - 1))
+    w0, q0 = tdc.tridiag_eigh(d, e, 60)
+    monkeypatch.setattr(tdc, "J_CHUNK_MIN", n)
+    monkeypatch.setattr(tdc, "J_CHUNK", 64)
+    jax.clear_caches()       # the plan is fixed at trace time
+    w1, q1 = tdc.tridiag_eigh(d, e, 60)
+    jax.clear_caches()
+    np.testing.assert_allclose(np.asarray(w1), np.asarray(w0), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(np.abs(np.asarray(q1)), np.abs(np.asarray(q0)),
+                               rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_argsort_int32_stable(dtype):
+    from dlaf_jax.algos.eigensolver.tridiag_dc import argsort
+    x = jnp.asarray(np.array([3.0, 1.0, 2.0, 1.0, np.nan, -1.0], dtype))
+    idx = argsort(x)
+    assert idx.dtype == jnp.int32
+    np.testing.assert_array_equal(np.asarray(idx), [5, 1, 3, 2, 0, 4])

@@ -10,13 +10,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import dlaf_tpu
-from dlaf_tpu import tune
+import dlaf_jax
+from dlaf_jax import tune
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_tune_env_override(monkeypatch):
-    monkeypatch.setenv("DLAF_TPU_EIGENSOLVER_MIN_BAND", "17")
-    monkeypatch.setenv("DLAF_TPU_DEBUG_DUMP_CHOLESKY_DATA", "true")
+    monkeypatch.setenv("DLAF_JAX_EIGENSOLVER_MIN_BAND", "17")
+    monkeypatch.setenv("DLAF_JAX_DEBUG_DUMP_CHOLESKY_DATA", "true")
     tune.reset_tune_parameters()
     tp = tune.get_tune_parameters()
     assert tp.eigensolver_min_band == 17
@@ -29,12 +31,27 @@ def test_tune_env_override(monkeypatch):
     tune.reset_tune_parameters()
 
 
+@pytest.mark.parametrize("knob,value", [
+    ("band_to_tridiag_kernel", "pallas"),     # the removed chaser kernel
+    ("band_to_tridiag_kernel", "auto"),       # now spelled "pipelined"
+    ("matmul_precision", "high"),             # TF32 on the GPU
+    ("potrf_trailing_kernel", "pallas"),      # removed knob
+    ("bt_apply_fuse_groups", 8),              # removed knob
+    ("potrf_panel_size", 8),                  # removed knob
+])
+def test_tune_rejects_removed_values(knob, value):
+    before = tune.get_tune_parameters()
+    with pytest.raises(ValueError):
+        tune.set_tune_parameters(**{knob: value})
+    assert tune.get_tune_parameters() == before
+
+
 def test_init_print_config(capsys):
-    from dlaf_tpu import init
+    from dlaf_jax import init
     init.finalize()
     init.initialize(print_config=True)
     out = capsys.readouterr().out
-    assert "dlaf_tpu configuration" in out
+    assert "dlaf_jax configuration" in out
     assert "eigensolver_min_band" in out
     init.finalize()
     with init.ScopedInitializer():
@@ -45,8 +62,8 @@ def test_collectives_on_mesh():
     from jax import lax
     from jax.sharding import PartitionSpec as P
 
-    from dlaf_tpu.comm import collectives as coll
-    from dlaf_tpu.comm.mesh import Grid
+    from dlaf_jax.comm import collectives as coll
+    from dlaf_jax.comm.mesh import Grid
 
     grid = Grid((2, 4))
     x = jnp.arange(8.0).reshape(8, 1, 1)
@@ -73,7 +90,7 @@ def test_collectives_on_mesh():
 
 
 def test_printing(capsys):
-    from dlaf_tpu.matrix.printing import print_csv, print_numpy
+    from dlaf_jax.matrix.printing import print_csv, print_numpy
     a = np.arange(4.0).reshape(2, 2)
     print_numpy(a, "m")
     out = capsys.readouterr().out
@@ -91,7 +108,7 @@ def test_scaling_scripts(tmp_path):
     r = subprocess.run(
         [sys.executable, "scripts/gen_scaling_runs.py", "--mode", "weak",
          "--algs", "chol", "--sizes", "1024"],
-        capture_output=True, text=True, cwd="/root/repo", env=env)
+        capture_output=True, text=True, cwd=ROOT, env=env)
     lines = r.stdout.strip().splitlines()
     assert len(lines) == 6 and all("miniapp_cholesky" in ln for ln in lines)
     csv = ("CSVData-2, 0, 0.5, 100.0, s, L, 1024, 256, 2, 2, 1, cpu\n"
@@ -99,13 +116,13 @@ def test_scaling_scripts(tmp_path):
     f = tmp_path / "runs.txt"
     f.write_text(csv)
     r = subprocess.run([sys.executable, "scripts/postprocess.py", str(f)],
-                       capture_output=True, text=True, cwd="/root/repo", env=env)
+                       capture_output=True, text=True, cwd=ROOT, env=env)
     assert "120.0" in r.stdout
 
 
 def test_native_pack_matches_scalapack_layout():
-    from dlaf_tpu import native
-    from dlaf_tpu.api import scalapack as sl
+    from dlaf_jax import native
+    from dlaf_jax.api import scalapack as sl
     a = np.arange(31 * 18, dtype=np.float64).reshape(31, 18)
     desc = sl.DLAF_descriptor(m=31, n=18, mb=4, nb=4)
     ref = sl.to_scalapack_locals(a, desc, (2, 3))
@@ -116,8 +133,8 @@ def test_native_pack_matches_scalapack_layout():
 
 
 def test_io_read_dist(tmp_path):
-    from dlaf_tpu.comm.mesh import Grid
-    from dlaf_tpu.matrix.io import MatrixFile
+    from dlaf_jax.comm.mesh import Grid
+    from dlaf_jax.matrix.io import MatrixFile
     a = np.random.default_rng(0).standard_normal((24, 24))
     f = MatrixFile(str(tmp_path / "ckpt"))
     f.write(input=a)
@@ -130,10 +147,10 @@ def test_grid_order_column_major():
     dlaf_create_grid order argument, include/dlaf_c/grid.h:31): device k
     sits at (k % P, k // P), and algorithms still run correctly since all
     index math is in mesh coordinates."""
-    from dlaf_tpu.algos.cholesky import cholesky
-    from dlaf_tpu.comm.mesh import Grid
-    from dlaf_tpu.matrix.dist_matrix import DistMatrix
-    from dlaf_tpu.matrix import generators as gen
+    from dlaf_jax.algos.cholesky import cholesky
+    from dlaf_jax.comm.mesh import Grid
+    from dlaf_jax.matrix.dist_matrix import DistMatrix
+    from dlaf_jax.matrix import generators as gen
 
     devs = jax.devices()[:8]
     gr = Grid((2, 4), order="R")
@@ -154,7 +171,7 @@ def test_grid_order_column_major():
     assert res < 1e-3
 
     # the ScaLAPACK registry passes the order through
-    from dlaf_tpu.api import scalapack as s
+    from dlaf_jax.api import scalapack as s
     ctx = s.dlaf_create_grid(2, 4, "C")
     try:
         g2 = s.dlaf_get_grid(ctx)
@@ -168,7 +185,7 @@ def test_c_entry_ppotrf_offset_info():
     with ia != ja the main diagonal lies outside the factored block, so a
     non-SPD sub-block must still yield info > 0 (regression: np.diagonal
     read finite untouched entries and returned info = 0)."""
-    from dlaf_tpu.native import c_entry
+    from dlaf_jax.native import c_entry
 
     m, nb, n = 8, 4, 4
     a = np.zeros((m, m), dtype=np.float32, order="F")

@@ -4,7 +4,7 @@ import importlib
 
 import pytest
 
-import dlaf_tpu
+import dlaf_jax
 
 CASES = [
     ("miniapp_cholesky", ["-n", "96", "-b", "32", "--check", "--nruns", "1"]),
@@ -37,14 +37,14 @@ CASES = [
 
 @pytest.fixture(autouse=True)
 def small_tune():
-    dlaf_tpu.set_tune_parameters(eigensolver_min_band=8, default_block_size=16)
+    dlaf_jax.set_tune_parameters(eigensolver_min_band=8, default_block_size=16)
     yield
-    dlaf_tpu.tune.reset_tune_parameters()
+    dlaf_jax.tune.reset_tune_parameters()
 
 
 @pytest.mark.parametrize("mod,argv", CASES, ids=[f"{m}-{i}" for i, (m, _) in enumerate(CASES)])
 def test_miniapp(mod, argv, capsys):
-    m = importlib.import_module(f"dlaf_tpu.miniapps.{mod}")
+    m = importlib.import_module(f"dlaf_jax.miniapps.{mod}")
     m.main(argv)
     out = capsys.readouterr().out
     if "--check" in argv:
@@ -62,7 +62,7 @@ def test_hdf5_reference_layout_roundtrip(tmp_path):
     import h5py
     import numpy as np
 
-    from dlaf_tpu.matrix.io import MatrixFile
+    from dlaf_jax.matrix.io import MatrixFile
 
     rng = np.random.default_rng(0)
     a = rng.standard_normal((6, 4)).astype(np.float32)
@@ -93,10 +93,10 @@ def test_miniapp_eigensolver_io_files(tmp_path, capsys):
     --input-file reproduces the run from the written file."""
     import numpy as np
 
-    from dlaf_tpu.matrix.io import MatrixFile
+    from dlaf_jax.matrix.io import MatrixFile
 
     out = str(tmp_path / "evp.h5")
-    from dlaf_tpu.miniapps import miniapp_eigensolver as m
+    from dlaf_jax.miniapps import miniapp_eigensolver as m
     m.main(["-n", "64", "--band-size", "16", "--check", "--nruns", "1",
             "--nwarmups", "0", "--output-file", out])
     assert "PASSED" in capsys.readouterr().out
@@ -115,7 +115,7 @@ def test_miniapp_tridiag_input_file(tmp_path, capsys):
     col 1 off-diag."""
     import numpy as np
 
-    from dlaf_tpu.matrix.io import MatrixFile
+    from dlaf_jax.matrix.io import MatrixFile
 
     rng = np.random.default_rng(1)
     n = 48
@@ -124,7 +124,7 @@ def test_miniapp_tridiag_input_file(tmp_path, capsys):
     td[:n - 1, 1] = rng.standard_normal(n - 1)
     path = str(tmp_path / "t.h5")
     MatrixFile(path).write(**{"/tridiag": td})
-    from dlaf_tpu.miniapps import miniapp_tridiag_solver as m
+    from dlaf_jax.miniapps import miniapp_tridiag_solver as m
     m.main(["--check", "--nruns", "1", "--nwarmups", "0",
             "--input-file", path])
     assert "PASSED" in capsys.readouterr().out

@@ -9,7 +9,7 @@ raison d'etre, ``communication/init.h:20-35``).
 
 Marked ``multihost`` (and slow): run explicitly with
 ``pytest -m multihost tests/test_multihost.py``; also included in the slow
-lane. Skipped on the TPU lane (needs its own CPU-only subprocesses).
+lane. Skipped on the GPU lane (needs its own CPU-only subprocesses).
 """
 import os
 import socket

@@ -13,10 +13,10 @@ import pytest
 from jax import lax
 from jax.sharding import PartitionSpec as P
 
-from dlaf_tpu.comm import panel
-from dlaf_tpu.comm.mesh import COL_AXIS, ROW_AXIS, Grid
-from dlaf_tpu.dist import Distribution, scatter_to_shards
-from dlaf_tpu.matrix.dist_matrix import DistMatrix
+from dlaf_jax.comm import panel
+from dlaf_jax.comm.mesh import COL_AXIS, ROW_AXIS, Grid
+from dlaf_jax.dist import Distribution, scatter_to_shards
+from dlaf_jax.matrix.dist_matrix import DistMatrix
 
 
 def _make(m, n, nb, grid_size, seed=0):

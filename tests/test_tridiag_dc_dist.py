@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dlaf_tpu.algos.eigensolver.tridiag_dc_dist import (dc_dist_supported,
+from dlaf_jax.algos.eigensolver.tridiag_dc_dist import (dc_dist_supported,
                                                         tridiag_eigh_dist)
-from dlaf_tpu.comm.mesh import Grid
+from dlaf_jax.comm.mesh import Grid
 
 from conftest import tol
 
@@ -45,9 +45,9 @@ def test_eigh_dist_non_pow2(grid_size):
     """Non-power-of-2 device counts run the device-resident pipeline
     (merge tree on the pow2 subset, reference 6-rank fixture analog,
     grids_6_ranks.h:25-70)."""
-    from dlaf_tpu.algos.eigensolver.dist_driver import eigh_dist
-    from dlaf_tpu.matrix import generators as gen
-    from dlaf_tpu.matrix.dist_matrix import DistMatrix
+    from dlaf_jax.algos.eigensolver.dist_driver import eigh_dist
+    from dlaf_jax.matrix import generators as gen
+    from dlaf_jax.matrix.dist_matrix import DistMatrix
     n, nb = 64, 16
     grid = Grid(grid_size)
     h = gen.random_hermitian(jax.random.PRNGKey(3), n, jnp.float64)
@@ -62,7 +62,7 @@ def test_eigh_dist_non_pow2(grid_size):
 
 def test_stage2_sweep_chunked_record():
     """Sweep-chunked vs/taus reassemble to the full record."""
-    from dlaf_tpu.algos.eigensolver import band_strips as bs
+    from dlaf_jax.algos.eigensolver import band_strips as bs
     n, b = 50, 8
     a = jax.random.normal(jax.random.PRNGKey(0), (n, n), jnp.float64)
     a = a + a.T
@@ -79,3 +79,22 @@ def test_stage2_sweep_chunked_record():
     t_cat = np.concatenate([np.asarray(p[3]) for p in parts])[:nsweeps]
     assert np.allclose(vs_cat, np.asarray(vs0))
     assert np.allclose(t_cat, np.asarray(t0))
+
+
+def test_tridiag_dc_dist_orthogonality_matches_local():
+    """The row-sharded merges (mode B) must keep the local D&C's
+    orthogonality: the Gu/Eisenstat zhat needs lam - ds_i formed with the
+    pole difference first. A tridiagonal from a real band reduction has the
+    close roots that expose a rounded form (2e-12 vs 5e-15 at n = 512)."""
+    from dlaf_jax.algos.eigensolver.band2tridiag import band_to_tridiag_auto
+    from dlaf_jax.algos.eigensolver.red2band import (extract_band,
+                                                     reduction_to_band)
+    from dlaf_jax.matrix import generators as gen
+    n, b = 512, 64
+    a = gen.random_hermitian(jax.random.PRNGKey(3), n, jnp.float64)
+    packed, _ = reduction_to_band(a, b)
+    d, e, _, _ = band_to_tridiag_auto(extract_band(packed, b), b)
+    lam, q, _ = tridiag_eigh_dist(jnp.real(d), jnp.real(e),
+                                  Grid((2, 2)).mesh, col_align=b)
+    q = np.asarray(q)[:n, :n]
+    assert np.max(np.abs(q.T @ q - np.eye(n))) <= tol(np.float64, n, 10)

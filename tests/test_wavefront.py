@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dlaf_tpu.algos.eigensolver.band_strips import (
+from dlaf_jax.algos.eigensolver.band_strips import (
     band_to_strips, band_to_tridiag_strips, band_to_tridiag_wavefront)
 
 
@@ -48,9 +48,9 @@ def test_wavefront_matches_sequential(n, b, dtype):
 def test_pipelined_dist_matches_sequential(grid_size, n, b):
     """Compute-distributed (pipelined) stage 2 on the CPU mesh: identical
     (d, e) and sweep-sharded reflector record as the sequential kernel."""
-    from dlaf_tpu.algos.eigensolver.dist_stage23 import (
+    from dlaf_jax.algos.eigensolver.dist_stage23 import (
         band_to_tridiag_dist_pipelined)
-    from dlaf_tpu.comm.mesh import Grid
+    from dlaf_jax.comm.mesh import Grid
 
     a = _band_matrix(n, b, "float64", seed=3)
     strips = band_to_strips(a, b)
@@ -69,9 +69,9 @@ def test_pipelined_dist_matches_sequential(grid_size, n, b):
 
 
 def test_pipelined_dist_complex():
-    from dlaf_tpu.algos.eigensolver.dist_stage23 import (
+    from dlaf_jax.algos.eigensolver.dist_stage23 import (
         band_to_tridiag_dist_pipelined)
-    from dlaf_tpu.comm.mesh import Grid
+    from dlaf_jax.comm.mesh import Grid
 
     n, b = 30, 4
     a = _band_matrix(n, b, "complex128", seed=4)
@@ -87,12 +87,12 @@ def test_pipelined_dist_complex():
 
 def test_eigh_dist_pipelined_mode():
     """End-to-end eigh_dist with the pipelined stage 2 (tune knob)."""
-    import dlaf_tpu
-    from dlaf_tpu.algos.eigensolver.dist_driver import eigh_dist
-    from dlaf_tpu.comm.mesh import Grid
-    from dlaf_tpu.matrix import generators as gen
-    from dlaf_tpu.matrix.dist_matrix import DistMatrix
-    from dlaf_tpu.tune import get_tune_parameters, set_tune_parameters
+    import dlaf_jax
+    from dlaf_jax.algos.eigensolver.dist_driver import eigh_dist
+    from dlaf_jax.comm.mesh import Grid
+    from dlaf_jax.matrix import generators as gen
+    from dlaf_jax.matrix.dist_matrix import DistMatrix
+    from dlaf_jax.tune import get_tune_parameters, set_tune_parameters
 
     n, nb = 64, 16
     a = gen.random_hermitian(jax.random.PRNGKey(6), n, np.dtype("float64"))
